@@ -23,23 +23,43 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+# Published peak device-memory bandwidth per device kind (as JAX reports
+# ``device_kind``), bytes/s.  Source: NVIDIA H100 data sheet, SXM part
+# (80 GB HBM3 at 3.35 TB/s).
+HBM_PEAK_BYTES_PER_S = {
+    "NVIDIA H100 80GB HBM3": 3.35e12,
+}
+
+
+def hbm_peak(device_kind):
+    """Peak memory bandwidth of ``device_kind``; a device missing from the
+    table is an error, not a skipped roofline field."""
+    try:
+        return HBM_PEAK_BYTES_PER_S[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peak bandwidth for device kind {device_kind!r}; "
+            "add it to HBM_PEAK_BYTES_PER_S with its source") from None
+
 
 def main():
     import jax
 
-    # Opt-in PRNG implementation A/B (e.g. MICRO_PRNG=rbg: the TPU's
-    # hardware rng-bit-generator instead of software threefry — the hot
-    # step draws 2 pool-wide uniforms per iteration).
+    # Opt-in PRNG implementation A/B (e.g. MICRO_PRNG=rbg instead of
+    # software threefry — the hot step draws 2 pool-wide uniforms per
+    # iteration).
     if os.environ.get("MICRO_PRNG"):
         jax.config.update("jax_default_prng_impl", os.environ["MICRO_PRNG"])
     import jax.numpy as jnp
     from jax import random
 
-    from grmonty_tpu.models import torus
-    from grmonty_tpu.transport import driver, engine
-    from grmonty_tpu.utils.logging import setup
+    from grmonty.models import torus
+    from grmonty.transport import driver, engine
+    from grmonty.utils.logging import setup
 
     setup("warning")
+    # Fail before any work on a device without a published peak.
+    peak = hbm_peak(jax.devices()[0].device_kind)
     pool = int(os.environ.get("MICRO_POOL", "65536"))
     dtype = (jnp.float32 if os.environ.get("MICRO_DTYPE", "float32") == "float32"
              else jnp.float64)
@@ -56,10 +76,7 @@ def main():
         dtype=dtype, fp_iters=int(os.environ.get("MICRO_FP_ITERS", "2")),
         interp_geom=os.environ.get("MICRO_INTERP", "0") == "1",
         dbg_skip=os.environ.get("MICRO_SKIP", ""),
-        vmem_gather=os.environ.get("MICRO_VMEM_GATHER", "0") == "1",
         fluid_cache=os.environ.get("MICRO_FLUID_CACHE", "0") == "1",
-        pallas_hot=os.environ.get("MICRO_PALLAS", "0") == "1",
-        pallas_block=int(os.environ.get("MICRO_PALLAS_BLOCK", "8192")),
         ev_k=int(os.environ.get("MICRO_EV_K", "0")),
         refill_k=int(os.environ.get("MICRO_REFILL_K", "0")),
         grow_cap=float(os.environ.get("MICRO_GROW_CAP", "1.0")),
@@ -89,7 +106,7 @@ def main():
     if jax.default_backend() == "cpu":
         backlog = sim.emit_packed(plan, start, pool * 8)
     else:
-        backlog, _ = sim.emit_packed_dev(plan, start, pool * 8)
+        backlog = sim.emit_packed_dev(plan, start, pool * 8)
     state = sim.engine["fresh_state"](random.PRNGKey(0))
     state = jax.jit(sim.engine["periodic_phase"])(state, backlog)
     # advance into the real mid-wave regime (counters warm, pool loaded
@@ -119,17 +136,11 @@ def main():
     slice_iters = int(s_out.it)
     occ_after = int(jax.device_get(s_out.pool.occupied.sum()))
 
-    # hot_step marginal via two fori lengths.  The fused Pallas kernels
-    # need the engine's raised scoped-VMEM limit on EVERY jit that traces
-    # them (otherwise the TPU compiler fails with a 38 MB > 16 MB scoped
-    # vmem stack OOM); the driver passes it on its dispatches, match it.
+    # hot_step marginal via two fori lengths.
     from jax import lax
-    copts = engine.compiler_options(cfg)
     hot = sim.engine["hot_step"]
-    f64 = jax.jit(lambda s: lax.fori_loop(0, 64, lambda i, s_: hot(s_), s),
-                  compiler_options=copts)
-    f512 = jax.jit(lambda s: lax.fori_loop(0, 512, lambda i, s_: hot(s_), s),
-                   compiler_options=copts)
+    f64 = jax.jit(lambda s: lax.fori_loop(0, 64, lambda i, s_: hot(s_), s))
+    f512 = jax.jit(lambda s: lax.fori_loop(0, 512, lambda i, s_: hot(s_), s))
     t64, _ = timed(f64, state)
     t512, _ = timed(f512, state)
     hot_ms = (t512 - t64) / (512 - 64) * 1e3
@@ -162,39 +173,27 @@ def main():
 
     rounds = int(jax.jit(sim.engine["push_rounds"])(state))
 
-    # Roofline anchor (VERDICT r1 "what's weak" #2: 'fast' was unanchored):
-    # XLA's own cost analysis of the 512-iteration hot loop gives the
-    # compiler's FLOP count and HBM bytes-accessed estimate; dividing by the
-    # measured wall time yields achieved GFLOP/s and GB/s.  Peak HBM
-    # bandwidth per chip generation (public spec sheets): v5e ~819 GB/s,
-    # v5p ~2765 GB/s, v4 ~1228 GB/s.  The hot loop is elementwise + one
-    # latency-bound row gather, so the relevant ceiling is BANDWIDTH (the
-    # MXU only does layout transposes here); pct_hbm_peak is the headline.
-    roof = {}
-    try:
-        an = f512.lower(state).compile().cost_analysis()
-        if isinstance(an, list):
-            an = an[0]
-        flops_it = float(an.get("flops", 0.0)) / 512
-        bytes_it = float(an.get("bytes accessed", 0.0)) / 512
-        t_it = (t512 - t64) / (512 - 64)
-        kind = jax.devices()[0].device_kind.lower()
-        peak = (819e9 if "v5 lite" in kind or "v5e" in kind
-                else 2765e9 if "v5p" in kind or "v5" in kind
-                else 1228e9 if "v4" in kind else None)
-        roof = {
-            "flops_per_iter": round(flops_it),
-            "bytes_per_iter": round(bytes_it),
-            "achieved_gflops": round(flops_it / t_it / 1e9, 1),
-            "achieved_gbps": round(bytes_it / t_it / 1e9, 1),
-        }
-        if peak:
-            roof["pct_hbm_peak"] = round(bytes_it / t_it / peak * 100, 1)
-    except Exception:  # noqa: BLE001 — cost analysis is best-effort
-        pass
+    # Roofline anchor: XLA's own cost analysis of the 512-iteration hot
+    # loop gives the compiler's FLOP count and bytes-accessed estimate;
+    # dividing by the measured time yields achieved GFLOP/s and GB/s.  The
+    # hot loop is elementwise + one row gather, so the relevant ceiling is
+    # memory BANDWIDTH; pct_hbm_peak is its share of the published peak.
+    an = f512.lower(state).compile().cost_analysis()
+    if isinstance(an, list):
+        an = an[0]
+    flops_it = float(an.get("flops", 0.0)) / 512
+    bytes_it = float(an.get("bytes accessed", 0.0)) / 512
+    t_it = (t512 - t64) / (512 - 64)
+    roof = {
+        "device_kind": jax.devices()[0].device_kind,
+        "flops_per_iter": round(flops_it),
+        "bytes_per_iter": round(bytes_it),
+        "achieved_gflops": round(flops_it / t_it / 1e9, 1),
+        "achieved_gbps": round(bytes_it / t_it / 1e9, 1),
+        "pct_hbm_peak": round(bytes_it / t_it / peak * 100, 1),
+    }
 
-    # Lane-slot utilization over the measured slice (XLA paths only; the
-    # Pallas hot step leaves the ls_* counters zero).
+    # Lane-slot utilization over the measured slice.
     dc = jax.device_get(s_out.counters)
     c0 = jax.device_get(state.counters)
     d_iters = int(dc.ls_iters - c0.ls_iters)

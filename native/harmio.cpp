@@ -1,13 +1,13 @@
 // Fast whitespace-separated double parser for HARM dump bodies.
 //
-// TPU-native equivalent of the host-side text parsing the reference does in
+// Native equivalent of the host-side text parsing the reference does in
 // C++ (cuda_grmonty/harm_model.cpp:81-232 reads the dump with istringstream,
 // one line at a time).  Here the whole body is parsed in parallel: the
 // buffer is split at line boundaries into one chunk per thread and each
 // chunk is scanned with strtod.
 //
 // Exposed as a tiny C ABI consumed from Python via ctypes
-// (grmonty_tpu/models/harmio_native.py).
+// (grmonty/models/harmio_native.py).
 //
 // Build: g++ -O3 -march=native -shared -fPIC -o libharmio.so harmio.cpp -lpthread
 

@@ -1,6 +1,6 @@
 // Native scalar reference tracker (the fast CPU validation oracle).
 //
-// Mirrors grmonty_tpu/transport/cpu_reference.py function-for-function:
+// Mirrors grmonty/transport/cpu_reference.py function-for-function:
 // the same math, the same control flow, the same RNG consumption points —
 // the Python oracle is itself the documented transcription of the
 // reference semantics (cuda_grmonty/harm_model.cpp:362-404,894-1069).
@@ -30,7 +30,7 @@
 
 namespace {
 
-// ----- constants (grmonty_tpu/consts.py; reference consts.hpp:12-173) -----
+// ----- constants (grmonty/consts.py; reference consts.hpp:12-173) -----
 constexpr double EPS = 1.0e-30;
 constexpr double STEP_EPS = 0.04;
 constexpr double E_TOL = 1.0e-3;

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from grmonty_tpu import consts
-from grmonty_tpu.ops import cheb, hotcross, jnu
+from grmonty import consts
+from grmonty.ops import cheb, hotcross, jnu
 
 
 def test_fit1d_exactness():

@@ -19,7 +19,7 @@ import textwrap
 import numpy as np
 import pytest
 
-from grmonty_tpu.transport import engine as engine_mod
+from grmonty.transport import engine as engine_mod
 
 # Heavy tier: multi-minute engine compiles / long transport runs on the
 # single-core CI host (tests/conftest.py tiering).
@@ -27,8 +27,8 @@ pytestmark = pytest.mark.slow
 
 
 def _run(tmp_path_factory, detached):
-    from grmonty_tpu.models import torus
-    from grmonty_tpu.transport import driver
+    from grmonty.models import torus
+    from grmonty.transport import driver
 
     path = tmp_path_factory.mktemp("dumps") / f"torus_d{int(detached)}"
     torus.write_torus_dump(str(path), n1=64, n2=32)
@@ -82,16 +82,15 @@ def test_detached_flush_terminates_with_pending_event(tmp_path_factory):
     Regression: engine.run()'s final flush looped on ``any(record_pending)``
     while spectrum_add (correctly) refuses to record lanes whose event
     registers are unconsumed — an infinite on-device while_loop that hung
-    the dispatch until the runtime watchdog killed the TPU worker
-    (reproduced twice on hardware: wave 2 slice 0 of any detached run at
-    real occupancy).  The flush must skip such lanes and leave them
+    the dispatch (reproduced twice on hardware: wave 2 slice 0 of any
+    detached run at real occupancy).  The flush must skip such lanes and leave them
     occupied for the next dispatch's periodic phase.
 
     Runs in a subprocess so a regression fails by timeout instead of
     hanging the suite.
     """
     dump = tmp_path_factory.mktemp("dumps") / "torus_flush"
-    from grmonty_tpu.models import torus
+    from grmonty.models import torus
 
     torus.write_torus_dump(str(dump), n1=64, n2=32)
     child = textwrap.dedent(
@@ -102,7 +101,7 @@ def test_detached_flush_terminates_with_pending_event(tmp_path_factory):
         import numpy as np
         from jax import random
 
-        from grmonty_tpu.transport import driver, engine as engine_mod
+        from grmonty.transport import driver, engine as engine_mod
 
         cfg = engine_mod.EngineConfig(
             n_pool=256, m_period=8, sec_cap=1024, max_outer=64,

@@ -11,13 +11,13 @@ import jax
 import numpy as np
 import pytest
 
-from grmonty_tpu.transport import engine as engine_mod
+from grmonty.transport import engine as engine_mod
 
 
 @pytest.fixture(scope="module")
 def sim(tmp_path_factory):
-    from grmonty_tpu.models import torus
-    from grmonty_tpu.transport import driver
+    from grmonty.models import torus
+    from grmonty.transport import driver
 
     path = tmp_path_factory.mktemp("dumps") / "torus_dump"
     torus.write_torus_dump(str(path), n1=64, n2=32)
@@ -44,7 +44,7 @@ def test_driver_end_to_end(sim):
 def test_cpu_tracker_smoke(sim):
     """CPUTracker tracks emitted photons end-to-end (the oracle chain's
     middle link; regression coverage for the round-3 prims-closure break)."""
-    from grmonty_tpu.transport import cpu_reference
+    from grmonty.transport import cpu_reference
 
     plan = sim.plan()
     b = jax.device_get(sim.emit(plan, 0, 1024))
@@ -70,9 +70,9 @@ def test_warm_pilot_accounting(sim, tmp_path):
     on: every photon binned in the spectrum is counted exactly once
     (harm_model.cpp:409-413 counter reconciliation).
     """
-    from grmonty_tpu.models import torus
-    from grmonty_tpu.transport import driver
-    from grmonty_tpu.transport.oracle_native import NativeTracker  # noqa: F401
+    from grmonty.models import torus
+    from grmonty.transport import driver
+    from grmonty.transport.oracle_native import NativeTracker  # noqa: F401
 
     path = tmp_path / "torus_dump"
     torus.write_torus_dump(str(path), n1=64, n2=32)

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from grmonty_tpu.ops import fluid, geometry, tetrads
+from grmonty.ops import fluid, geometry, tetrads
 
 
 def _setup(torus_model):
@@ -112,14 +112,14 @@ def test_geom_blend_accuracy(torus_model):
 def test_mxu_transpose_rows_exact(torus_model):
     """The one-hot dot transpose is bitwise the plain transpose.
 
-    (EngineConfig.mxu_extract relies on this: the MXU layout change must
-    not perturb the gathered corner rows at all.)"""
+    (EngineConfig.mxu_extract relies on this: the layout change must not
+    perturb the gathered corner rows at all.)"""
     mc, prims, *_ = _setup(torus_model)
     table = jnp.asarray(
         fluid.make_corner_table(np.asarray(prims), mc.n1, mc.n2), jnp.float32)
     idx = jnp.asarray([0, 7, 129, mc.n1 * mc.n2 - 1, 512], jnp.int32)
     rows = table[idx]
-    rt = fluid.mxu_transpose_rows(rows)
+    rt = fluid.onehot_transpose(rows)
     assert rt.shape == (32, idx.shape[0])
     np.testing.assert_array_equal(np.asarray(rt), np.asarray(rows).T)
 

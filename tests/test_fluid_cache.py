@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 from jax import random
 
-from grmonty_tpu.transport import engine as engine_mod
+from grmonty.transport import engine as engine_mod
 
 # Heavy tier: multi-minute engine compiles / long transport runs on the
 # single-core CI host (tests/conftest.py tiering).
@@ -24,8 +24,8 @@ pytestmark = pytest.mark.slow
 
 @pytest.fixture(scope="module")
 def pair(tmp_path_factory):
-    from grmonty_tpu.models import torus
-    from grmonty_tpu.transport import driver
+    from grmonty.models import torus
+    from grmonty.transport import driver
 
     path = tmp_path_factory.mktemp("dumps") / "torus_dump"
     torus.write_torus_dump(str(path), n1=64, n2=32)

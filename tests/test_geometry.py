@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from grmonty_tpu.ops import geometry
+from grmonty.ops import geometry
 
 A = 0.9375
 H_SLOPE = 0.3
@@ -132,14 +132,14 @@ def test_step_size_positive_and_small():
     dl = np.asarray(geometry.step_size(x, k, 1.0))
     assert (dl > 0).all()
     # harmonic mean is smaller than each individual limit
-    from grmonty_tpu import consts
+    from grmonty import consts
 
     dl1 = consts.STEP_EPS * np.asarray(x[:, 1]) / (np.abs(np.asarray(k[:, 1])) + 1e-40)
     assert (dl <= dl1 + 1e-12).all()
 
 
 def test_closed_form_det_matches_numpy():
-    from grmonty_tpu.ops import linalg as gl
+    from grmonty.ops import linalg as gl
 
     rng = np.random.default_rng(9)
     for n in (2, 3, 4):

@@ -11,7 +11,7 @@ statistical accuracy at scale is validated separately
 import numpy as np
 import pytest
 
-from grmonty_tpu.transport import engine as engine_mod
+from grmonty.transport import engine as engine_mod
 
 # Heavy tier: multi-minute engine compiles / long transport runs on the
 # single-core CI host (tests/conftest.py tiering).
@@ -19,8 +19,8 @@ pytestmark = pytest.mark.slow
 
 
 def _run(tmp_path_factory, grow):
-    from grmonty_tpu.models import torus
-    from grmonty_tpu.transport import driver
+    from grmonty.models import torus
+    from grmonty.transport import driver
 
     path = tmp_path_factory.mktemp("dumps") / f"torus_g{grow}"
     torus.write_torus_dump(str(path), n1=64, n2=32)

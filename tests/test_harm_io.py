@@ -10,7 +10,7 @@ import math
 import numpy as np
 import pytest
 
-from grmonty_tpu.models import harm
+from grmonty.models import harm
 
 
 def _sample_header():
@@ -95,7 +95,7 @@ def test_derived_quantities(tmp_path, rng):
 
 def test_units(tmp_path):
     u = harm.make_units(4.0e19)
-    from grmonty_tpu import consts
+    from grmonty import consts
 
     assert u.l_unit == pytest.approx(consts.G_NEWT * consts.M_BH / consts.CL**2)
     assert u.rho_unit == pytest.approx(4.0e19 / u.l_unit**3)
@@ -107,7 +107,7 @@ def test_units(tmp_path):
 
 
 def test_native_parser_matches_numpy():
-    from grmonty_tpu.models import harmio_native
+    from grmonty.models import harmio_native
 
     text = "1.5 2e3 -0.25\n nan 7 "
     arr = harmio_native.parse_doubles(text)

@@ -10,7 +10,7 @@ import math
 import numpy as np
 import pytest
 
-from grmonty_tpu.ops.integration import adaptive_gauss_quad
+from grmonty.ops.integration import adaptive_gauss_quad
 
 CASES = [
     ("const", lambda x: np.full_like(x, 3.0), 0.0, 2.0, 6.0),

@@ -18,10 +18,10 @@ import math
 import numpy as np
 import pytest
 
-from grmonty_tpu import consts
-from grmonty_tpu.ops import fluid, geometry, radiation
-from grmonty_tpu.transport import cpu_reference
-from grmonty_tpu.transport.oracle_native import NativeTracker
+from grmonty import consts
+from grmonty.ops import fluid, geometry, radiation
+from grmonty.transport import cpu_reference
+from grmonty.transport.oracle_native import NativeTracker
 
 # Heavy tier: multi-minute engine compiles / long transport runs on the
 # single-core CI host (tests/conftest.py tiering).
@@ -30,9 +30,9 @@ pytestmark = pytest.mark.slow
 
 @pytest.fixture(scope="module")
 def sim(tmp_path_factory):
-    from grmonty_tpu.models import torus
-    from grmonty_tpu.transport import driver
-    from grmonty_tpu.transport import engine as engine_mod
+    from grmonty.models import torus
+    from grmonty.transport import driver
+    from grmonty.transport import engine as engine_mod
 
     path = tmp_path_factory.mktemp("dumps") / "torus_dump"
     torus.write_torus_dump(str(path), n1=64, n2=32)

@@ -13,7 +13,7 @@ import scipy.integrate
 import scipy.special
 from jax import random
 
-from grmonty_tpu.ops import proba
+from grmonty.ops import proba
 
 
 def test_maxwell_juettner_mean_gamma():

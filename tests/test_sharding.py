@@ -6,12 +6,12 @@ import jax
 import numpy as np
 import pytest
 
-from grmonty_tpu.transport import engine as engine_mod
+from grmonty.transport import engine as engine_mod
 
 
 @pytest.fixture(scope="module")
 def dumps(tmp_path_factory):
-    from grmonty_tpu.models import torus
+    from grmonty.models import torus
 
     path = tmp_path_factory.mktemp("dumps") / "torus_dump"
     torus.write_torus_dump(str(path), n1=64, n2=32)
@@ -31,7 +31,7 @@ def test_mesh_available():
 
 @pytest.fixture(scope="module")
 def sharded_run(dumps):
-    from grmonty_tpu.parallel import sharding
+    from grmonty.parallel import sharding
 
     sim = sharding.ShardedSimulation(
         dumps, photon_n=60, mass_unit=4.0e18, config=_cfg(64),
@@ -55,7 +55,7 @@ def test_sharded_matches_single_device(dumps, sharded_run):
     """Spectrum and accounting agree statistically with a single-device run
     of the same dump/photon budget (different RNG partitioning, so the
     comparison is statistical, not bitwise)."""
-    from grmonty_tpu.transport import driver
+    from grmonty.transport import driver
 
     spec_s, stats_s = sharded_run
 
@@ -81,7 +81,7 @@ def test_sharded_bench_knobs_terminate(tmp_path):
     refill_period, mxu_extract, gather_split) at dryrun shapes MUST
     terminate on the 8-shard mesh.
 
-    Regression test for the MULTICHIP_r02 rc=124 livelock: with a
+    Regression test for the ring-full/pool-full livelock: with a
     secondary ring sized small relative to the no-pilot Compton storm,
     every lane ends up holding an unconsumed scatter event while the ring
     is full — the ring-full backpressure then consumed no events, no lane
@@ -93,8 +93,8 @@ def test_sharded_bench_knobs_terminate(tmp_path):
     CI-runnable (no GRMONTY_SLOW gate): this is the shipped-configuration
     multi-chip signal that round 2 lost.
     """
-    from grmonty_tpu.models import torus
-    from grmonty_tpu.parallel import sharding
+    from grmonty.models import torus
+    from grmonty.parallel import sharding
 
     # The wedge reproduced at exactly the dryrun shapes: a 32x16 torus at
     # M=4e19 (hot inner zones -> storm), 64-lane pools, 512-slot ring.
@@ -119,7 +119,7 @@ def _chi2_groups(spec_a, n_a, spec_b, n_b, group=20):
     """Coarse-group chi^2 between two spectra using each run's exact MC
     variance channel (sum((w e)^2), channel 13) — the same statistic as
     tools/validate_accuracy.py."""
-    from grmonty_tpu import consts
+    from grmonty import consts
 
     NB, NE = consts.N_TH_BINS, consts.N_E_BINS
     sa = spec_a[: NB * NE].reshape(NB, NE, -1)
@@ -145,12 +145,12 @@ def test_sharded_chi2_parity_bench_profile(dumps):
     supported sharded) against the single-device engine with the SAME
     config, compared by the exact-variance chi^2 of the accuracy harness.
 
-    Replaces the round-1 60-photon/5x-tolerance check (VERDICT r1 #5);
+    Replaces the round-1 60-photon/5x-tolerance check;
     passes at chi2/dof ~ 1 with ~20x the photon count and per-group
     exact MC variances.
     """
-    from grmonty_tpu.parallel import sharding
-    from grmonty_tpu.transport import driver
+    from grmonty.parallel import sharding
+    from grmonty.transport import driver
 
     n_ph = 1200
     cfg = engine_mod.EngineConfig(

@@ -31,9 +31,9 @@ REGEN_SEEDS = (123, 207, 311, 401, 509, 613, 701, 811)
 
 
 def _run(seed=123):
-    from grmonty_tpu import consts
-    from grmonty_tpu.models import torus
-    from grmonty_tpu.transport import driver, engine
+    from grmonty import consts
+    from grmonty.models import torus
+    from grmonty.transport import driver, engine
 
     import tempfile
 

@@ -8,8 +8,8 @@ import pytest
 import scipy.integrate
 import scipy.special
 
-from grmonty_tpu import consts
-from grmonty_tpu.ops import hotcross, jnu, radiation
+from grmonty import consts
+from grmonty.ops import hotcross, jnu, radiation
 
 
 class TestHotcross:
@@ -161,7 +161,7 @@ class TestRadiation:
 
 
 class TestGoldenPins:
-    """Bit-stability pins for the built tables (VERDICT r3 item 8).
+    """Bit-stability pins for the built tables.
 
     The values are frozen from a build whose accuracy is independently
     verified above (k2 vs scipy.special.kv, f vs the direct GK integral,

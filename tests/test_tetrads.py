@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from grmonty_tpu.ops import fluid, geometry, tetrads
+from grmonty.ops import fluid, geometry, tetrads
 
 A = 0.9375
 H_SLOPE = 0.3

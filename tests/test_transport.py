@@ -9,9 +9,9 @@ import numpy as np
 import pytest
 from jax import random
 
-from grmonty_tpu import consts
-from grmonty_tpu.ops import emission, fluid, geometry, scattering, tetrads
-from grmonty_tpu.transport import engine as engine_mod
+from grmonty import consts
+from grmonty.ops import emission, fluid, geometry, scattering, tetrads
+from grmonty.transport import engine as engine_mod
 
 # Heavy tier: multi-minute engine compiles / long transport runs on the
 # single-core CI host (tests/conftest.py tiering).
@@ -20,8 +20,8 @@ pytestmark = pytest.mark.slow
 
 @pytest.fixture(scope="module")
 def sim(tmp_path_factory):
-    from grmonty_tpu.models import torus
-    from grmonty_tpu.transport import driver
+    from grmonty.models import torus
+    from grmonty.transport import driver
 
     path = tmp_path_factory.mktemp("dumps") / "torus_dump"
     torus.write_torus_dump(str(path), n1=64, n2=32)
@@ -148,7 +148,7 @@ def test_engine_end_to_end(sim, engine_run):
 def test_engine_vs_oracle_statistics(sim, engine_run):
     """The batch engine agrees statistically with the scalar CPU oracle on
     per-primary recorded counts and luminosity."""
-    from grmonty_tpu.transport import cpu_reference
+    from grmonty.transport import cpu_reference
 
     spec, stats = engine_run
     eng_rec = stats["n_recorded"] / stats["n_created"]
@@ -166,7 +166,7 @@ def test_engine_vs_oracle_statistics(sim, engine_run):
     #     run a Compton storm: measured 14.2 rec/primary cold vs 5.4 for
     #     the warm engine), so the oracle gets the same native-pilot
     #     warmup the engine got before measuring.
-    from grmonty_tpu.transport.oracle_native import NativeTracker
+    from grmonty.transport.oracle_native import NativeTracker
 
     n_orc = 40
     warm_batch = sim._pilot_batch(plan, 128)

@@ -22,8 +22,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def run_one(dump, photon_n, grow, pool):
     import numpy as np
 
-    from grmonty_tpu import consts
-    from grmonty_tpu.transport import driver, engine
+    from grmonty import consts
+    from grmonty.transport import driver, engine
 
     cfg = engine.EngineConfig(
         n_pool=pool, m_period=8, sec_cap=16384, max_outer=200000,
@@ -51,8 +51,8 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
-    from grmonty_tpu.models import torus
-    from grmonty_tpu.utils.logging import setup
+    from grmonty.models import torus
+    from grmonty.utils.logging import setup
 
     setup("warning")
     n1 = int(os.environ.get("AB_N1", "64"))

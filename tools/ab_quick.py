@@ -19,9 +19,9 @@ import numpy as np  # noqa: E402
 def main():
     import jax.numpy as jnp
 
-    from grmonty_tpu.models import torus
-    from grmonty_tpu.transport import driver, engine
-    from grmonty_tpu.utils.logging import setup
+    from grmonty.models import torus
+    from grmonty.transport import driver, engine
+    from grmonty.utils.logging import setup
 
     setup("info")
     overrides = {}

@@ -24,9 +24,9 @@ def main():
     import numpy as np
     from jax import random
 
-    from grmonty_tpu.models import torus
-    from grmonty_tpu.transport import driver, engine
-    from grmonty_tpu.utils.logging import setup
+    from grmonty.models import torus
+    from grmonty.transport import driver, engine
+    from grmonty.utils.logging import setup
 
     setup("warning")
     pool = int(os.environ.get("CENSUS_POOL", "65536"))
@@ -50,7 +50,7 @@ def main():
     if jax.default_backend() == "cpu":
         backlog = sim.emit_packed(plan, start, pool * 8)
     else:
-        backlog, _ = sim.emit_packed_dev(plan, start, pool * 8)
+        backlog = sim.emit_packed_dev(plan, start, pool * 8)
     state = sim.engine["fresh_state"](random.PRNGKey(0))
     state = jax.jit(sim.engine["periodic_phase"])(state, backlog)
     for _ in range(3):  # ~1.5k iters: storm mix incl. secondary cascade

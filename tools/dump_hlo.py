@@ -21,9 +21,9 @@ def main():
     import jax.numpy as jnp
     from jax import random
 
-    from grmonty_tpu.models import torus
-    from grmonty_tpu.transport import driver, engine
-    from grmonty_tpu.utils.logging import setup
+    from grmonty.models import torus
+    from grmonty.transport import driver, engine
+    from grmonty.utils.logging import setup
 
     setup("warning")
     pool = int(os.environ.get("MICRO_POOL", "65536"))

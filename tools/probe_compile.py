@@ -1,10 +1,9 @@
 #!/usr/bin/env python
 """Decompose the bench's warm-start cost: trace/lower vs compile vs load.
 
-The r5 bench pays ~210 s of "compile_s" even with a HOT persistent XLA
-cache (only 2 new cache entries written on a repeat run) — so the time is
-NOT XLA compilation.  This probe times the main engine's jit stages
-separately on the real backend:
+A warm start can pay "compile_s" even with a HOT persistent XLA cache, in
+which case the time is NOT XLA compilation.  This probe times the main
+engine's jit stages separately on the real backend:
 
     lower   = trace + StableHLO lowering (pure host Python, 1 core)
     compile = XLA compile OR persistent-cache hit (deserialize+load)
@@ -26,8 +25,8 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from grmonty_tpu.transport import driver, engine as engine_mod, profiles
-    from grmonty_tpu.utils.logging import setup
+    from grmonty.transport import driver, engine as engine_mod, profiles
+    from grmonty.utils.logging import setup
 
     setup("info")
     pool = int(os.environ.get("BENCH_POOL", "65536"))

@@ -38,7 +38,7 @@ def engine_chain(theta_e, k0, n, seed):
     import jax.numpy as jnp
     from jax import random
 
-    from grmonty_tpu.ops import proba, scattering
+    from grmonty.ops import proba, scattering
 
     k_tet = (jnp.full((n,), k0), jnp.full((n,), k0),
              jnp.zeros((n,)), jnp.zeros((n,)))
@@ -93,9 +93,9 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
-    from grmonty_tpu.models import torus
-    from grmonty_tpu.transport import driver, engine
-    from grmonty_tpu.transport.oracle_native import NativeTracker
+    from grmonty.models import torus
+    from grmonty.transport import driver, engine
+    from grmonty.transport.oracle_native import NativeTracker
 
     cache = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), ".cache")

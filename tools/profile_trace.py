@@ -16,8 +16,8 @@ import jax
 import jax.numpy as jnp
 from jax import random
 
-from grmonty_tpu.transport import driver, engine
-from grmonty_tpu.utils.logging import setup
+from grmonty.transport import driver, engine
+from grmonty.utils.logging import setup
 
 POOL = int(os.environ.get("PROF_POOL", "65536"))
 
@@ -28,7 +28,7 @@ def main():
     os.makedirs(cache, exist_ok=True)
     dump = os.path.join(cache, "torus_256x256_dump")
     if not os.path.exists(dump):
-        from grmonty_tpu.models import torus
+        from grmonty.models import torus
 
         torus.write_torus_dump(dump, n1=256, n2=256)
     cfg = engine.EngineConfig(
@@ -36,8 +36,6 @@ def main():
         dtype=jnp.float32, ev_k=16384, grow_cap=8.0, grow_rate=1.1892,
         detached_events=True,
         refill_k=32768,
-        pallas_hot=os.environ.get("BENCH_PALLAS", "0") == "1",
-        vmem_gather=os.environ.get("BENCH_VMEM_GATHER", "0") == "1",
         col_gather=os.environ.get("BENCH_COL_GATHER", "0") == "1",
         mxu_extract=os.environ.get("BENCH_MXU", "1") == "1",
         gather_split=int(os.environ.get("BENCH_GATHER_SPLIT", "4")),
@@ -46,7 +44,7 @@ def main():
                             config=cfg, emit_chunk=POOL * 8)
     plan = sim.plan()
     start = max(0, min(2 << 20, plan.total - POOL * 8))
-    backlog, _ = sim.emit_packed_dev(plan, start, POOL * 8)
+    backlog = sim.emit_packed_dev(plan, start, POOL * 8)
     state = sim.engine["fresh_state"](random.PRNGKey(0))
     state = jax.block_until_ready(
         jax.jit(sim.engine["periodic_phase"])(state, backlog))

@@ -1,7 +1,7 @@
 #!/bin/sh
 # Build the REFERENCE implementation's CPU backend as a standalone binary,
 # for ground-truth validation (three-way spectrum comparison: reference
-# binary / native oracle / TPU engine — see tests/test_vs_reference.py).
+# binary / native oracle / JAX engine — see tests/test_vs_reference.py).
 #
 # The reference's own build needs Bazel + abseil + spdlog; here it compiles
 # with plain g++ against two tiny support files (a spdlog stub header and a

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Deep-tau path-replay harness (VERDICT r4 #4).
+"""Deep-tau path-replay harness.
 
 Question: the engine's recorded max_tau_scatt at M_unit=4e20 is 20-80x the
 scalar oracle's seed-stable value (0.54 / 1.96 / 14.8 across seeds vs
@@ -61,10 +61,10 @@ def main():
     import jax.numpy as jnp
     from jax import random as jrandom
 
-    from grmonty_tpu.models import torus
-    from grmonty_tpu.ops import emission, fluid, geometry
-    from grmonty_tpu.transport import driver, engine
-    from grmonty_tpu.utils.logging import setup
+    from grmonty.models import torus
+    from grmonty.ops import emission, fluid, geometry
+    from grmonty.transport import driver, engine
+    from grmonty.utils.logging import setup
 
     setup("info")
     cache = os.path.join(REPO, ".cache")
@@ -75,7 +75,7 @@ def main():
 
     sim_kw = {}
     if args.bench_profile:
-        from grmonty_tpu.transport import profiles
+        from grmonty.transport import profiles
 
         cfg = profiles.bench_config(pool=1024, env={})
         cfg = cfg._replace(sec_cap=16384, max_outer=200000)
@@ -137,7 +137,7 @@ def main():
         n_scatt=np.asarray([int(c.mt_nsc0)], np.int32),
     )
 
-    from grmonty_tpu.transport.oracle_native import NativeTracker
+    from grmonty.transport.oracle_native import NativeTracker
 
     replays = []
     for rseed in (args.seed + 7, args.seed + 101, args.seed + 503):

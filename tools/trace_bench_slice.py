@@ -18,9 +18,9 @@ def main():
     import numpy as np
     from jax import random
 
-    from grmonty_tpu.models import torus
-    from grmonty_tpu.transport import driver, profiles
-    from grmonty_tpu.utils.logging import setup
+    from grmonty.models import torus
+    from grmonty.transport import driver, profiles
+    from grmonty.utils.logging import setup
 
     setup("warning")
     logdir = sys.argv[1] if len(sys.argv) > 1 else "/tmp/grmonty_trace"
@@ -36,7 +36,7 @@ def main():
         **profiles.bench_sim_kwargs(pool))
     plan = sim.plan()
     start = max(0, min(2 << 20, plan.total - sim.emit_chunk))
-    backlog, _ = sim.emit_packed_dev(plan, start, sim.emit_chunk)
+    backlog = sim.emit_packed_dev(plan, start, sim.emit_chunk)
     state = sim.engine["fresh_state"](random.PRNGKey(0))
     te, nv = np.int32(pool), np.int32(sim.emit_chunk)
     state = sim._run_jit(state, backlog, te, nv)  # load + warm

@@ -57,7 +57,7 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-from grmonty_tpu.models import harm
+from grmonty.models import harm
 
 m = harm.read_dump(sys.argv[1], 4.0e19)
 h = m.header

@@ -47,7 +47,7 @@ def parse_spectrum_text(path, n_th=6, n_e=200):
 
 def luminosity_from_text(per, mc, d_l_e):
     """Total L/Lsun as report_spectrum computes it (nuLnu dOmega dlE)."""
-    from grmonty_tpu.ops import geometry
+    from grmonty.ops import geometry
 
     n_e, n_th = per.shape[0], per.shape[1]
     dx2 = (mc.x_stop[2] - mc.x_start[2]) / (2 * n_th)
@@ -93,10 +93,10 @@ def main():
     jax.config.update("jax_platforms", "cpu")
 
 
-    from grmonty_tpu import consts
-    from grmonty_tpu.models import torus
-    from grmonty_tpu.transport import driver, engine
-    from grmonty_tpu.utils.logging import setup
+    from grmonty import consts
+    from grmonty.models import torus
+    from grmonty.transport import driver, engine
+    from grmonty.utils.logging import setup
 
     setup("info")
     cache = os.path.join(REPO, ".cache")
@@ -129,7 +129,7 @@ def main():
 
     # --- engine -----------------------------------------------------------
     if args.bench_profile:
-        from grmonty_tpu.transport import profiles
+        from grmonty.transport import profiles
 
         cfg = profiles.bench_config(pool=1024, env={})
         cfg = cfg._replace(sec_cap=16384, max_outer=200000)
@@ -238,7 +238,7 @@ def main():
     out["chi2_per_dof_vs_ref"] = chi2 / max(dof, 1)
     out["dof"] = dof
 
-    # Oracle per-band column (VERDICT r4 missing #2): the same coarse-band
+    # Oracle per-band column: the same coarse-band
     # ratios for the NATIVE ORACLE vs the reference binary, so a low
     # engine band can be classified as a shared-oracle systematic (both
     # low) or an engine bug (oracle fine, engine low).  The oracle spec

@@ -108,7 +108,7 @@ def main():
         if fnum != 1 or wt != 2:
             continue
         pname, lines, meta = parse_plane(plane_buf)
-        if "TPU" not in pname and "/device:" not in pname:
+        if "/device:" not in pname:
             continue
         for lbuf in lines:
             lname = _line_name(lbuf)
